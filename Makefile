@@ -1,7 +1,7 @@
 CXX ?= g++
 CXXFLAGS ?= -O3 -march=native -std=c++14 -Wall
 
-.PHONY: all native test bench tpu-check clean
+.PHONY: all native test bench chip-smoke clean
 
 all: native
 
@@ -13,16 +13,18 @@ native/libfastx.so: native/fastx_parser.cpp
 native/cpu_baseline: native/cpu_baseline.cpp
 	$(CXX) $(CXXFLAGS) -fopenmp -o $@ $<
 
+# The tier-1 suite (ROADMAP.md "Tier-1 verify"), CPU only.
 test:
-	python -m pytest tests/ -x -q
+	env JAX_PLATFORMS=cpu python -m pytest tests/ -q -m 'not slow' \
+	    -p xdist -n 6 --dist loadfile -p no:randomly
 
 bench:
 	python bench.py
 
-# Real-chip differential gate: all Pallas kernel families vs the jnp scan,
-# one chip claim, log recorded in native/tpu_check_last.txt.
-tpu-check:
-	python native/tpu_check.py
+# On a GPU machine: the kernel compiled for the card vs the plain scan at
+# real widths, and the CLI end to end, in one process (chip_smoke.py).
+chip-smoke:
+	python chip_smoke.py
 
 clean:
 	rm -f native/libfastx.so native/cpu_baseline

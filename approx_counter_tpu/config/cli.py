@@ -37,7 +37,7 @@ class _RefExitParser(argparse.ArgumentParser):
 def build_parser() -> argparse.ArgumentParser:
     p = _RefExitParser(
         prog="adaptFinder",
-        description="TPU-native approximate k-mer counter "
+        description="JAX approximate k-mer counter "
         "(capabilities of qbonenfant/approx_counter)",
     )
     p.add_argument("input_file", help="input FASTA/FASTQ file")
@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-sl", "--sample_length", type=int, default=None,
                    help="size of the sampled portion, default 100 bases")
     p.add_argument("-nt", "--nb_thread", type=int, default=None,
-                   help="number of threads (compat; TPU path uses the device mesh)")
+                   help="number of threads (compat; the device path uses the mesh)")
     p.add_argument("-k", "--kmer_size", type=int, default=None,
                    help="size of the kmers, default is 16")
     p.add_argument("-lim", "--limit", type=int, default=None,
@@ -104,6 +104,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "vector (extension; auto = when the pool bytes "
                         "undercut the per-pass planes; in-memory mode "
                         "only -- inert under --stream/--from-exact)")
+    p.add_argument("--bpm-impl", choices=("auto", "jnp", "kernel"),
+                   default="auto",
+                   help="approximate-count implementation: the GPU kernel "
+                        "or the plain XLA scan (extension; auto = the "
+                        "kernel on a GPU, the scan on a CPU)")
     return p
 
 
@@ -179,4 +184,5 @@ def resolve_params(argv: list[str]) -> Params:
     if args.from_exact is not None:
         prm.from_exact = args.from_exact
     prm.device_pool = args.device_pool
+    prm.bpm_impl = None if args.bpm_impl == "auto" else args.bpm_impl
     return prm

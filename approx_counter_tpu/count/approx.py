@@ -1,7 +1,7 @@
 """Approximate-count stage: candidates x windows -> ranked counts.
 
-Device-side glue around the Pallas BPM kernel (kernels/bpm.py), replacing
-``errorCount`` + the following ``get_most_frequent`` re-rank
+Device-side glue around the approximate-count kernels (kernels/bpm.py),
+replacing ``errorCount`` + the following ``get_most_frequent`` re-rank
 (/root/reference/approx_counter.cpp:531-601, :922-923).
 
 Ranking parity subtlety: the reference stores ``results[kmer] = total`` for
@@ -22,10 +22,7 @@ from approx_counter_tpu.core.complexity import dimer_sum
 from approx_counter_tpu.kernels.bpm import approx_counts, build_peq
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "ct", "wt", "use_pallas", "interpret", "maxerr"),
-)
+@functools.partial(jax.jit, static_argnames=("k", "maxerr", "impl"))
 def approx_count_rank(
     windows,        # uint8 [W, m] sampled windows (padded rows = BASE_PAD)
     n_valid,        # int32 scalar: real window count
@@ -33,30 +30,26 @@ def approx_count_rank(
     sel_lo,         # uint32 [cap]
     sel_valid,      # bool [cap]
     k: int,
-    ct: int | None,
-    wt: int | None,
-    use_pallas: bool,
-    interpret: bool = False,
     maxerr: int = 2,
+    impl: str | None = None,
 ):
     """Returns (hi, lo, count, valid) ranked by CompareCount.
 
-    ``count`` is the Σ max(0, 3 - d_min) total per candidate; invalid
-    candidate slots rank last.
+    ``count`` is the Σ max(0, maxerr+1 - d_min) total per candidate;
+    invalid candidate slots rank last.  ``impl`` picks the counting
+    implementation (kernels/bpm.py ``approx_counts``).
     """
     W = windows.shape[0]
     window_valid = jax.lax.broadcasted_iota(jnp.int32, (W,), 0) < n_valid
 
     peq = build_peq(sel_hi, sel_lo, k)          # [cap, 4]
-    # Invalid candidate slots: under the sliced kernel a zero peq row
-    # decodes as poly-A and computes a real (garbage) nonzero count.  That
+    # Invalid candidate slots: a zero peq row decodes as poly-A in the
+    # kernel's bit planes and computes a real (garbage) count.  That
     # is safe only because rank_with_zero_counts masks counts by sel_valid
     # before ranking -- do NOT rely on invalid slots returning zero.
     windows_t = jnp.transpose(windows, (1, 0))  # [m, W]
-    counts = approx_counts(
-        peq, windows_t, window_valid, k, maxerr=maxerr,
-        use_pallas=use_pallas, ct=ct, wt=wt, interpret=interpret,
-    )
+    counts = approx_counts(peq, windows_t, window_valid, k, maxerr=maxerr,
+                           impl=impl)
 
     return rank_with_zero_counts(sel_hi, sel_lo, counts, sel_valid, k)
 

@@ -50,12 +50,10 @@ def _as_sortable_i32(x):
 def _topk_global(x_i32, cap: int):
     """Exact global top-``cap`` (values desc + indices) via TWO-LEVEL
     top_k: row-wise top_k on an [R, P/R] reshape, then top_k of the row
-    winners.  Measured at P = 3.5M on v5e (native/topk_probe.py,
-    same-session sweep): flat pair 13.78 ms vs 6.90/8.94/6.93/6.36 at
-    R = 32/64/128/256 -- lax.top_k's cost grows with the reduced-axis
-    length, so splitting it beats one long reduction; the curve is flat
-    past R = 32, and the largest power-of-two R <= 256 that divides P
-    and keeps every row >= cap wide is used.
+    winners -- a top_k whose cost grows with the reduced-axis length runs
+    faster split this way than as one long reduction.  The largest
+    power-of-two R <= 256 that divides P and keeps every row >= cap wide
+    is used.
 
     Exactness: every global top-``cap`` element is one of its row's top
     ``cap`` (fewer than cap elements can rank above it anywhere, so
@@ -66,11 +64,10 @@ def _topk_global(x_i32, cap: int):
     tied *value* (see its coverage argument).  Falls back to the flat
     call when the reshape doesn't divide.
 
-    Measured alternative that does NOT work (native/topk_probe4.py, r4):
-    lax.approx_max_k on order-preserving float32 bitcasts is slower at
-    recall_target=1.0 (7.09 ms vs 4.68 here at P=3.5M) AND inexact on
-    tie-heavy/monotone inputs (512/512 wrong) -- byte parity forbids it
-    at any setting."""
+    An alternative that does NOT work: lax.approx_max_k on
+    order-preserving float32 bitcasts is inexact on tie-heavy/monotone
+    inputs even at recall_target=1.0 -- byte parity forbids it at any
+    setting."""
     P = x_i32.shape[0]
     R = 256
     while R > 1 and (P % R or P // R < cap):
@@ -96,7 +93,7 @@ def _cap_slice(x, cap: int, fill):
 
 def _topk_rank_rowsort(key1, s_lo, cap: int):
     """Exact CompareCount top-``cap`` selection as ONE batched composite
-    row sort (the round-5 fused replacement for ``_topk_rank``'s two
+    row sort (the fused replacement for ``_topk_rank``'s two
     hierarchical ``top_k`` passes + merge sort).
 
     Reshape the P entries to [R, C] rows, sort each row by the FULL
@@ -109,12 +106,7 @@ def _topk_rank_rowsort(key1, s_lo, cap: int):
     collide, and those are bit-identical, hence interchangeable -- so no
     index dedup is needed (unlike ``_topk_rank``'s boundary-class
     corner).  Returns the same (o1, o4) = (packed key1, ~code) contract.
-
-    Measured on v5e at P=3.5M / cap=512 (native/exact_probe5.py, one
-    interleaved process): 4.38 ms at R=512 (4.48/4.47 at 256/1024) vs
-    6.05 ms for the _topk_rank pair; end-to-end exact stage
-    10.20 -> 8.62 ms.  R: largest power of two <= 512 that divides P
-    with rows >= cap.
+    R: largest power of two <= 512 that divides P with rows >= cap.
     """
     P = key1.shape[0]
     # The driver pads window rows to a WT=256 multiple, so P = n*p is
@@ -226,8 +218,7 @@ def exact_count_select_rows(
     transposed: bool = False,
     select_impl: str = "rowsort",  # "rowsort" | "topk": which exact
     #                   top-cap selection runs on the k<=16 hot path (both
-    #                   byte-exact; rowsort measured 10.20 -> 8.62 ms
-    #                   end-to-end on chip, native/exact_probe5.py)
+    #                   byte-exact; neither yet measured on the GPU)
 ):
     # ``transposed``: consume the [m, n] (text-major) layout the BPM
     # kernel already wants, so a fused pass materializes ONE batch layout
@@ -278,8 +269,7 @@ def exact_count_select_rows(
     # This keeps the 3.5M-element sort at a single uint32 key for k <= 16
     # (no 32-bit sentinel is free at k == 16 -- all-T IS 0xFFFFFFFF) and two
     # keys for k > 16.
-    # is_stable=False on every P-sized sort here: measured 8.60 -> 5.55 ms
-    # (1 key) / 10.39 -> 7.91 (2 keys) at P=3.5M on v5e (pass_decomp4).
+    # is_stable=False on every P-sized sort here (a stable sort costs more).
     # Safe: these sorts carry no payloads beyond their keys (equal-key
     # entries are bit-identical and interchangeable).
     n_total_valid = jnp.sum(valid.astype(jnp.int32))
@@ -365,11 +355,9 @@ def exact_count_select_rows(
         key1 = ((jnp.uint32(P) - count) << np.uint32(db)) | dimer
         if k <= 16 and P > 2 * cap:
             # partial-selection path: avoid sorting all P positions by
-            # full CompareCount order (the full ranking sort was ~9 ms of
-            # the ~19 ms exact stage at reference defaults).  Two exact
-            # implementations: "rowsort" (one batched composite row sort,
-            # round 5) and "topk" (two hierarchical top_k passes + merge,
-            # rounds 3-4) -- A/B'd on chip in native/exact_probe5.py.
+            # full CompareCount order.  Two exact implementations:
+            # "rowsort" (one batched composite row sort) and "topk" (two
+            # hierarchical top_k passes + merge).
             sel_fn = (_topk_rank_rowsort if select_impl == "rowsort"
                       else _topk_rank)
             o1, o4 = sel_fn(key1, s_lo, cap)

@@ -3,13 +3,14 @@
 This component has no counterpart in the reference -- its only parallelism
 is OpenMP threads inside ``errorCount``
 (/root/reference/approx_counter.cpp:547-599) with an ``omp critical``
-reduction.  The TPU-native design (SURVEY.md §2 parallelism audit):
+reduction.  The design here (SURVEY.md §2 parallelism audit):
 
   * sampled read **windows are sharded** along a 1-D ``data`` mesh axis;
   * **candidate k-mers are replicated** (the Peq table is a few KB);
-  * each device scores its window shard with the Pallas BPM kernel and the
-    per-candidate partial counts merge with a ``psum`` allreduce -- riding
-    ICI within a slice, DCN across hosts (via jax.distributed init);
+  * each device scores its window shard with the approximate-count kernel
+    and the per-candidate partial counts merge with a ``psum`` allreduce
+    (NVLink between the cards of a host, the network across hosts via
+    jax.distributed init);
   * the exact-count stage is a plain ``jit`` over globally-sharded window
     arrays: packing is embarrassingly parallel and the sort/RLE lowers to
     XLA's distributed sort, so no hand-written collective is needed.
@@ -50,21 +51,17 @@ def shard_windows(windows_t, window_valid, mesh: Mesh, axis: str = "data"):
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_counts_fn(
-    mesh: Mesh, axis: str, k: int, ct, wt, use_pallas: bool,
-    interpret: bool, maxerr: int,
-):
-    """Build + jit the shard_map fan-out once per config.  Without the
-    outer jit a bare shard_map call re-traces (and on the remote stack
-    re-compiles) EVERY invocation -- measured 3 s/call vs 5.8 ms for the
-    cached executable (native/shard_timing.py)."""
+def _sharded_counts_fn(mesh: Mesh, axis: str, k: int, maxerr: int,
+                       impl: str | None, counts_fn):
+    """Build + jit the shard_map fan-out once per config (a bare
+    shard_map call re-traces on every invocation)."""
     from approx_counter_tpu.kernels.bpm import approx_counts
 
+    if counts_fn is None:
+        counts_fn = functools.partial(approx_counts, impl=impl)
+
     def shard_fn(peq_rep, wt_shard, wv_shard):
-        counts = approx_counts(
-            peq_rep, wt_shard, wv_shard, k, maxerr=maxerr,
-            use_pallas=use_pallas, ct=ct, wt=wt, interpret=interpret,
-        )
+        counts = counts_fn(peq_rep, wt_shard, wv_shard, k, maxerr=maxerr)
         return jax.lax.psum(counts, axis)
 
     return jax.jit(jax.shard_map(
@@ -85,16 +82,16 @@ def approx_counts_sharded(
     k: int,
     mesh: Mesh,
     axis: str = "data",
-    ct: int | None = None,
-    wt: int | None = None,
-    use_pallas: bool = True,
-    interpret: bool = False,
     maxerr: int = 2,
+    impl: str | None = None,
+    counts_fn=None,
 ):
-    """shard_map fan-out of the BPM kernel + psum count merge -> [C] int32."""
-    fn = _sharded_counts_fn(
-        mesh, axis, k, ct, wt, use_pallas, interpret, maxerr
-    )
+    """shard_map fan-out of the approximate count + psum merge -> [C] int32.
+
+    ``impl`` picks the per-shard implementation (kernels/bpm.py
+    ``approx_counts``); ``counts_fn`` replaces it outright with a function
+    of the same signature (tests run the kernel interpreted this way)."""
+    fn = _sharded_counts_fn(mesh, axis, k, maxerr, impl, counts_fn)
     return fn(peq, windows_t, window_valid)
 
 
@@ -102,19 +99,14 @@ def make_approx_step(
     mesh: Mesh,
     k: int,
     axis: str = "data",
-    ct: int | None = None,
-    wt: int | None = None,
-    use_pallas: bool | None = None,
     maxerr: int = 2,
+    impl: str | None = None,
 ):
     """Approx-only mesh step (the multihost ``--from-exact`` resume path):
-    explicit candidate selection in, BPM counts + CompareCount re-rank
-    out; no exact-count stage."""
+    explicit candidate selection in, approximate counts + CompareCount
+    re-rank out; no exact-count stage."""
     from approx_counter_tpu.count.approx import rank_with_zero_counts
     from approx_counter_tpu.kernels.bpm import build_peq
-
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
 
     @jax.jit
     def step(windows, window_valid, sel_hi, sel_lo, sel_valid):
@@ -122,7 +114,7 @@ def make_approx_step(
         windows_t = jnp.transpose(windows, (1, 0))
         counts = approx_counts_sharded(
             peq, windows_t, window_valid, k, mesh=mesh, axis=axis,
-            ct=ct, wt=wt, use_pallas=use_pallas, maxerr=maxerr,
+            maxerr=maxerr, impl=impl,
         )
         a_hi, a_lo, a_cnt, a_val = rank_with_zero_counts(
             sel_hi, sel_lo, counts, sel_valid, k
@@ -138,29 +130,21 @@ def make_full_step(
     k: int,
     cap: int,
     axis: str = "data",
-    ct: int | None = None,
-    wt: int | None = None,
-    use_pallas: bool | None = None,
     n_forbidden: int = 0,
     use_solid: bool = False,
     maxerr: int = 2,
+    impl: str | None = None,
 ):
     """Build the jitted full counting step over a mesh: window batch in,
     CompareCount-ranked exact + approximate counts out.
 
-    This is the multi-chip "training step" analog: windows arrive sharded
-    P(axis, None); the exact stage runs under XLA auto-SPMD; the approx
-    stage fans out through shard_map + psum; selections/rankings are
-    replicated.
+    Windows arrive sharded P(axis, None); the exact stage runs under XLA
+    auto-SPMD; the approx stage fans out through shard_map + psum;
+    selections/rankings are replicated.
     """
     from approx_counter_tpu.count.approx import rank_with_zero_counts
-    from approx_counter_tpu.count.exact import exact_count_select
-    from approx_counter_tpu.kernels.bpm import build_peq
-
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
-
     from approx_counter_tpu.count.exact import exact_count_select_rows
+    from approx_counter_tpu.kernels.bpm import build_peq
 
     @jax.jit
     def step(windows, window_valid, lc_sum_thr, fhi, flo, limit, solid_km):
@@ -175,8 +159,7 @@ def make_full_step(
         windows_t = jnp.transpose(windows, (1, 0))
         counts = approx_counts_sharded(
             peq, windows_t, window_valid, k, mesh=mesh, axis=axis,
-            ct=min(ct, cap) if ct is not None else None,
-            wt=wt, use_pallas=use_pallas, maxerr=maxerr,
+            maxerr=maxerr, impl=impl,
         )
         a_hi, a_lo, a_cnt, a_val = rank_with_zero_counts(
             out["sel_hi"], out["sel_lo"], counts, out["sel_valid"], k

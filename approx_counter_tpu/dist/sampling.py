@@ -90,7 +90,7 @@ class _BottomK:
 
 def _allgather_rows(local: np.ndarray) -> np.ndarray:
     """Allgather a fixed-shape per-host array -> [pc, *shape] on every
-    host (jax.experimental.multihost_utils over the global CPU/TPU
+    host (jax.experimental.multihost_utils over the global device
     backend; hosts must call this collectively, same shapes)."""
     from jax.experimental import multihost_utils
 

@@ -97,7 +97,7 @@ def gather_windows_native(
     """Row i of ``out[:, :ncols]`` <- ``buf[starts[i] : starts[i]+ncols]``.
 
     Native memcpy-per-row replacement for numpy fancy-indexing (which
-    intermittently throttles ~100x on this host).  ``out`` must be C-
+    can be much slower on some virtualized hosts).  ``out`` must be C-
     contiguous uint8; ``buf`` contiguous uint8; raises ImportError when the
     library isn't built (callers fall back to numpy).
     """

@@ -1,12 +1,11 @@
-"""Myers bit-parallel approximate-match kernel (the hot engine).
+"""Approximate-match counting: candidates x windows -> per-candidate counts.
 
 Replaces the reference's bidirectional FM-index + SeqAn search-scheme
 ``find<0,2>(..., EditDistance())`` enumeration
-(/root/reference/approx_counter.cpp:531-601) with a dense, TPU-idiomatic
-formulation: for every (candidate k-mer x sampled window) pair, compute the
-minimum semi-global edit distance d_min of the candidate against any
-substring of the window (Myers 1999 bit-parallel DP -- one uint32 word per
-pair since k <= 32), then accumulate the per-window contribution
+(reference approx_counter.cpp:531-601) with a dense formulation: for
+every (candidate k-mer x sampled window) pair, find the minimum semi-global
+edit distance d_min of the candidate against any substring of the window,
+then accumulate the per-window contribution
 
     contribution = max(0, (MAXERR+1) - d_min)
 
@@ -15,66 +14,21 @@ contributes one count per error level e in {0..MAXERR} at which an alignment
 exists, and an alignment with exactly e ops exists iff e >= d_min (validated
 against the exact-stratum DP in oracle.py; SURVEY.md §3C).
 
-Layout (chosen for the VPU, 8x128 lanes):
-  * state arrays are (Ct, Wt) uint32 -- candidates on sublanes, windows on
-    lanes;
-  * windows arrive transposed as [m, W] so each DP step reads one *row*
-    (all windows' j-th base) -- a cheap sublane-indexed dynamic slice;
-  * Peq masks live as [C, 4] uint32, one (Ct, 1) column per base, selected
-    per step by comparing the broadcast window base row;
-  * grid = (candidate tiles, window tiles), window-innermost so each output
-    block (Ct, 1) stays resident in VMEM and accumulates across window
-    tiles.
+Two implementations with one contract ([C, 4] peq x [m, W] windows ->
+[C] int32 counts):
 
-N/pad handling: window symbols >= 4 match no candidate base (Eq bit 0), so
-N behaves exactly like SeqAn's Dna5 'N' vs an ACGT needle (unit mismatch
-cost) and trailing padding can never lower d_min (monotonicity argument in
-SURVEY.md §3C / tests).
+  * ``approx_counts_jnp`` -- Myers 1999 bit-parallel DP as a ``lax.scan``
+    over text positions, one uint32 word per pair.  The plain reference,
+    and what the CPU runs.
+  * ``approx_counts_kernel`` -- a Pallas kernel through Triton for the GPU:
+    the candidate-bit-sliced level NFA (below), a different algorithm and
+    layout, so agreement between the two is a strong check on both.
 
-Performance (TPU v5e, k=16, m=101/104, 512x40960 pairs): unpacked Myers
-~27 ms/call = 0.77 Gpairs/s; SWAR packed-pair Myers ~10.4 ms = 2.0
-Gpairs/s; mask-free packed-pair level-NFA 2.4-2.8 Gpairs/s at maxerr=2;
-the **candidate-bit-sliced level-NFA** (_nfa_kernel_sliced) is the
-production kernel.  Canonical number: **4.88 Gpairs/s** at maxerr=2,
-ctw=8/wt=256 -- the latest driver-captured bench.py figure
-(BENCH_r04.json, 744x the 4-thread C++ stand-in; per-round history:
-r1 2.25 -> r2 4.56 -> r3 4.75 -> r4 4.88).  Per-process measurements range 3.7-4.9
-Gpairs/s (absolute throughput drifts ~15-25% between processes on this
-remote stack -- only trust interleaved A/B *ratios*, which are stable:
-+55%/+33%/+39%/+59% over the packed NFA at maxerr 2/0/1/3, with 5.6 /
-4.4 / 3.2 Gpairs/s at maxerr 0 / 1 / 3 in the same sweep process;
-native/sweep_sliced.py).
-The ~20% gap to the sliced kernel's op-count floor (~6.0 Gpairs/s) was
-attributed to fori_loop carry streaming (~45 live state tiles); measured
-r3 (native/sweep_carry.py, interleaved best-of-2): unroll in {8,16,24} x
-ctw in {8,16} x wt in {128,256} all land within +-2% of the production
-(8, 8, 256) config (best: unroll=16/ctw=8/wt=128 at +1.6%, inside A/B
-noise; unroll>=16 with wt=256 is 8-10% WORSE).  The state traffic is
-insensitive to these knobs, and an ACTUAL op-count reduction was built
-and falsified in r4: ``prologue=True`` compile-time-specializes the
-first k-1 text steps (positions beyond the i <= j + d reachability
-bound and their Eq masks elided -- ~6.6% of total kernel ops at
-k=16/maxerr=2/m=104) yet measures a flat 1.030x / 0.998x interleaved
-vs production, bit-exact on chip (native/pass_decomp4.py).  Deleted ops
-do not convert to time at the margin, so the residual gap is carry
-streaming, not issue count; algebraic reformulations (e.g. carrying
-level set-differences) were analyzed op-neutral -- the D-form
-recurrence Dn_d = (D_d[i-1] & Eq) | D_{d-1}[i] | D_{d-1}[i-1] |
-Dn_{d-1}[i-1] has exactly the canonical 4 terms.  The floor question is
-closed with a measurement, not an assertion.
-Speed-of-light: every kernel here is VPU-bound, so per-step full-tile op
-count converts ~1:1 to throughput.  The sliced layout wins by deleting
-ops: NFA position shifts become index renames and 32 candidates share
-each word, leaving ~6.2 ops per (pair, step) vs ~11.5 for the packed-pair
-NFA (whose own history: the bit-sliced Eq select cut 8 compare/selects
-to 4 logic ops, leak masks were proven removable -- see the kernel
-headers; per-maxerr packed tuning lives in _TUNE).  Measured variants
-that did NOT help: pre-converted int32 windows (-5%), unsigned score
-(Mosaic lacks minui), batching the slice row math per 8-row group
-(noise), wt >= 512 sliced tiles (-10%, state no longer VMEM-bank
-friendly).  For the packed kernels, pack=4 (8-bit fields, k <= 8) cuts
-per-candidate ops ~40% for small k; the NFA packs to 8/16 fields for
-k <= 4/2 (no carries, no guard bits).
+Windows arrive transposed as [m, W] so each DP step reads one row (every
+window's j-th base).  Window symbols >= 4 (N, pad) match no candidate base,
+so N behaves exactly like SeqAn's Dna5 'N' against an ACGT needle (unit
+mismatch cost) and trailing padding can never lower d_min (monotonicity
+argument in SURVEY.md §3C / tests).
 """
 
 from __future__ import annotations
@@ -85,10 +39,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu_triton
 
 MAXERR = 2  # reference default (approx_counter.cpp:25 -- fixed at compile
 #             time there; here a static kernel parameter, 0 <= maxerr <= 3)
+
+#: Implementations ``approx_counts`` can be asked for by name.
+IMPLS = ("jnp", "kernel")
 
 
 def build_peq(hi, lo, k: int):
@@ -119,89 +76,17 @@ def build_peq(hi, lo, k: int):
     return jnp.stack(peq, axis=-1)  # [C, 4]
 
 
-def _eq_select(c_row, peq_cols, eqsel: str):
-    """Eq mask for text-base row ``c_row`` (int32 (1, Wt), values 0..5).
+def _bpm_step(c_row, VP, VN, score, minsc, peq_cols, k: int):
+    """One Myers DP step over a whole [C, W] state.
 
-    ``eqsel`` picks the select strategy (measured on v5e, see module
-    docstring):
-
-    * ``"where"`` — nested 4-way compare+select over the peq columns:
-      8 full-tile VPU ops.
-    * ``"slice"`` — bit-sliced xor trick: precompute (outside the text
-      loop) ``mask0 = peq[1] | peq[3]`` (pattern bases with bit0 set) and
-      ``mask1 = peq[2] | peq[3]``; per step build all-ones/all-zeros row
-      masks from the text base's bits and xor them in:
-
-          Eq = (mask0 ^ x0) & (mask1 ^ x1) & vm
-          x_b = ((c >> b) & 1) - 1   (all-ones iff text bit b == 0)
-          vm  = (c - 4) >> 31        (all-ones iff c < 4, kills N/pad)
-
-      Bit i of ``mask_b ^ x_b`` is [pattern-base-i bit b == c bit b], so
-      the AND is exactly [pattern base i == c].  4 full-tile ops plus 3
-      cheap (1, Wt) row ops.
-
-    ``peq_cols`` is (p0, p1, p2, p3) of (Ctp, 1) uint32 for "where", or
-    the precomputed (mask0, mask1) pair for "slice".
-    """
-    if eqsel == "slice":
-        mask0, mask1 = peq_cols
-        # c_row is either the raw int32 base row or the (x0, x1, vm)
-        # masks precomputed for a whole 8-row group (three (8, Wt) vector
-        # ops instead of 8 x 3 per-row ops -- see the group loops).
-        x0, x1, vm = (c_row if isinstance(c_row, tuple)
-                      else _slice_rows(c_row))
-        return (mask0 ^ x0) & (mask1 ^ x1) & vm
-    return jnp.where(
-        c_row == 0,
-        peq_cols[0],
-        jnp.where(
-            c_row == 1,
-            peq_cols[1],
-            jnp.where(c_row == 2, peq_cols[2],
-                      jnp.where(c_row == 3, peq_cols[3], jnp.uint32(0))),
-        ),
-    )
-
-
-def _slice_rows(c):
-    """(x0, x1, vm) row masks for the "slice" Eq select, from int32 text
-    bases ``c`` of any row shape ((1, Wt) per step, or (8, Wt) to batch a
-    whole group's row math into three vector ops)."""
-    x0 = ((c & 1) - 1).astype(jnp.uint32)
-    x1 = (((c >> 1) & 1) - 1).astype(jnp.uint32)
-    vm = ((c - 4) >> 31).astype(jnp.uint32)
-    return x0, x1, vm
-
-
-def _eq_cols(peq_ref, eqsel: str):
-    """Per-tile Eq-select constants from the (Ctp, 4) peq block."""
-    cols = tuple(peq_ref[:, b][:, None] for b in range(4))  # (Ctp, 1) u32
-    if eqsel == "slice":
-        return (cols[1] | cols[3], cols[2] | cols[3])
-    return cols
-
-
-def _group_rows(rows, eqsel: str):
-    """Per-step Eq-select inputs for one 8-row text group.
-
-    For "slice", the row masks for all 8 steps are computed in three
-    (8, Wt) vector ops up front; "where" consumes the raw base rows."""
-    if eqsel == "slice":
-        X0, X1, VM = _slice_rows(rows)
-        return [(X0[i][None, :], X1[i][None, :], VM[i][None, :])
-                for i in range(8)]
-    return [rows[i, :][None, :] for i in range(8)]
-
-
-def _bpm_step(c_row, VP, VN, score, minsc, peq_cols, k: int,
-              eqsel: str = "where"):
-    """One Myers DP step over a whole (Ct, Wt) tile.
-
-    ``c_row``: (1, Wt) int32 window bases at text position j.
-    ``peq_cols``: Eq-select constants (see _eq_select).
+    ``c_row``: (1, W) int32 window bases at text position j.
+    ``peq_cols``: the four (C, 1) peq columns.
     """
     high = np.uint32(1) << np.uint32(k - 1)
-    Eq = _eq_select(c_row, peq_cols, eqsel)
+    # the peq column of the text base; N and pad (4, 5) match nothing
+    Eq = jnp.uint32(0)
+    for b in range(4):
+        Eq = jnp.where(c_row == b, peq_cols[b], Eq)
     Xv = Eq | VN
     Xh = (((Eq & VP) + VP) ^ VP) | Eq
     Ph = VN | ~(Xh | VP)
@@ -220,7 +105,7 @@ def _bpm_step(c_row, VP, VN, score, minsc, peq_cols, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Pure-jnp reference implementation (CPU tests / fallback)
+# Plain reference: lax.scan over text positions
 # ---------------------------------------------------------------------------
 
 
@@ -257,442 +142,43 @@ def approx_counts_jnp(peq, windows_t, window_valid, k: int,
 
 
 # ---------------------------------------------------------------------------
-# Pallas TPU kernel
-# ---------------------------------------------------------------------------
-
-
-def _bpm_kernel(peq_ref, win_ref, wvalid_ref, out_ref, *, k: int, m: int,
-                maxerr: int, eqsel: str = "slice"):
-    wi = pl.program_id(1)
-
-    peq_cols = _eq_cols(peq_ref, eqsel)
-    Ct = peq_ref.shape[0]
-    Wt = win_ref.shape[1]
-
-    VP = jnp.full((Ct, Wt), np.uint32(0xFFFFFFFF), jnp.uint32)
-    VN = jnp.zeros((Ct, Wt), jnp.uint32)
-    score = jnp.full((Ct, Wt), k, jnp.int32)
-    minsc = jnp.full((Ct, Wt), k, jnp.int32)
-
-    # Text loop in aligned groups of 8 rows: a bare dynamic sublane index
-    # into the uint8 window buffer is rejected by Mosaic (alignment not
-    # provable), and full static unrolling of ~100+ steps makes the program
-    # huge and multiplies (remote) compile time.  g*8 is provably 8-aligned,
-    # so load 8 rows per fori_loop iteration and unroll the 8 DP steps on
-    # the loaded value.  m is padded to a multiple of 8 by the caller; pad
-    # symbols never match, and trailing pad cannot lower d_min (SURVEY §3C).
-    assert m % 8 == 0, m
-
-    def group(g, carry):
-        base = pl.multiple_of(g * 8, 8)
-        rows = win_ref[pl.ds(base, 8), :].astype(jnp.int32)  # (8, Wt)
-        for cr in _group_rows(rows, eqsel):
-            carry = _bpm_step(cr, *carry, peq_cols, k, eqsel)
-        return carry
-
-    VP, VN, score, minsc = jax.lax.fori_loop(
-        0, m // 8, group, (VP, VN, score, minsc)
-    )
-    contrib = jnp.maximum(0, (maxerr + 1) - minsc)  # (Ct, Wt) int32
-    contrib = contrib * wvalid_ref[:].astype(jnp.int32)  # (1, Wt) broadcast
-    partial = jnp.sum(contrib, axis=1, keepdims=True)  # (Ct, 1)
-
-    @pl.when(wi == 0)
-    def _():
-        out_ref[:] = partial
-
-    @pl.when(wi != 0)
-    def _():
-        out_ref[:] = out_ref[:] + partial
-
-
-def _round_up(x: int, mult: int) -> int:
-    return ((x + mult - 1) // mult) * mult
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "ct", "wt", "interpret", "maxerr", "eqsel")
-)
-def approx_counts_pallas(
-    peq, windows_t, window_valid, k: int,
-    ct: int = 32, wt: int = 512, interpret: bool = False,
-    maxerr: int = MAXERR, eqsel: str = "slice",
-):
-    """Pallas BPM: [C,4] peq x [m,W] windows -> [C] int32 counts.
-
-    C must be a multiple of ``ct`` and W of ``wt`` (callers pad; padded
-    candidates produce garbage rows that the caller drops, padded windows
-    are masked by ``window_valid``).
-    """
-    C = peq.shape[0]
-    m, W = windows_t.shape
-    assert C % ct == 0 and W % wt == 0, (C, ct, W, wt)
-    if m % 8:  # pad text to the kernel's 8-row group size (symbol 5)
-        windows_t = jnp.pad(windows_t, ((0, 8 - m % 8), (0, 0)),
-                            constant_values=np.uint8(5))
-        m = windows_t.shape[0]
-    grid = (C // ct, W // wt)
-
-    wvalid = window_valid.astype(jnp.int32).reshape(1, W)
-
-    out = pl.pallas_call(
-        functools.partial(_bpm_kernel, k=k, m=m, maxerr=maxerr, eqsel=eqsel),
-        out_shape=jax.ShapeDtypeStruct((C, 1), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ct, 4), lambda ci, wi: (ci, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((m, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ct, 1), lambda ci, wi: (ci, 0),
-                               memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=18 * C * W * m, bytes_accessed=C * 16 + m * W + 4 * C,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(peq.astype(jnp.uint32), windows_t, wvalid)
-    return out[:, 0]
-
-
-# ---------------------------------------------------------------------------
-# SWAR-packed Pallas kernels: 2 candidates/word (k <= 16) or 4 (k <= 8)
-# ---------------------------------------------------------------------------
+# GPU kernel: candidate-bit-sliced level NFA (Wu-Manber / Baeza-Yates
+# k-differences, Navarro 2001 search form).  R_d bit i is set iff the
+# pattern prefix P[0..i] matches a substring ending at the current text
+# position with <= d edits.  Instead of one word per candidate holding k
+# state bits, word bit c holds ONE state bit of candidate c: 32 candidates
+# per uint32, one value per (error level d, pattern position i).  The
+# NFA's shift by one position becomes an index rename, so the update per
+# text base costs, per 32-candidate word:
 #
-# For k <= 16 a candidate's Myers state needs only 16 bits, so two
-# candidates ride in one uint32 (candidate 2i in bits 0..15, 2i+1 in
-# 16..31); for k <= 8, four candidates in 8-bit fields.  The only
-# carry-coupled op, (Eq & VP) + VP, becomes a SWAR per-field mod-2^fw
-# addition (fw = field width):
+#   Eq[i]   = ((P0[i] ^ x0) & (P1[i] ^ x1)) & vm
+#   Rn_0[i] = R_0[i-1] & Eq[i]                        (Rn_0[0] = Eq[0])
+#   Rn_d[i] = (R_d[i-1] & Eq[i]) | R_{d-1}[i] | R_{d-1}[i-1] | Rn_{d-1}[i-1]
+#             (match            | insertion  | substitution | deletion)
+#   h_d    |= Rn_d[k-1]
 #
-#   sum = ((a & ~H) + (b & ~H)) ^ ((a ^ b) & H),   H = top bit of each field
+# P0[i]/P1[i] are the candidates' base bit-planes (bit c = bit 0/1 of
+# candidate c's base at position i, ``build_sliced_planes``); x0/x1 are
+# all-ones iff the text base's bit 0/1 is 0, and vm is all-ones iff the
+# text symbol is a base (N and pad match nothing).  Positions i < d are
+# all-ones at every step (i+1 <= d leading pattern chars are deletable),
+# so they are constants, never carried; levels d > k-1 are all constant
+# (every window hits) and fold into a per-window additive term.  Levels
+# nest (R_{d-1} within R_d), so the sticky hit words give the contribution
+# sum_d hit_d == max(0, (maxerr+1) - d_min) with no score tracking.
 #
-# (low fw-1 bits add normally; each field's top bit is a ^ b ^ carry_in and
-# the inter-field carry is discarded -- exactly mod-2^fw per field, which
-# matches single-word Myers where carries beyond bit k-1 never feed back
-# into bits < k: carries only propagate upward).  Left shifts mask the bit
-# that would leak between fields.  All pack scores share one packed int32
-# counter: the +-1 deltas address each field's bit 0 via a replicated-ones
-# mask, and per-field borrows cannot occur because a Myers score is a
-# distance and never goes negative.  Score fields cannot overflow either:
-# the tracked value is the exact semi-global distance D[k][j], and with a
-# free text start D[i][j] <= i <= k (every prefix of the pattern aligns to
-# the empty suffix ending at j in at most i edits), so a field only ever
-# holds values in [0, k] -- at most 16 in an 8-bit field.
-# ~18 (pack=2) / ~12 (pack=4) VPU ops per step per candidate vs ~30
-# unpacked.
-
-
-def _swar_consts(pack: int):
-    fw = 32 // pack
-    ones = sum(1 << (fw * i) for i in range(pack))          # bit0 per field
-    H = np.uint32(ones << (fw - 1))                          # top bit/field
-    NH = np.uint32(H ^ 0xFFFFFFFF)
-    LEAK = np.uint32((ones ^ 0xFFFFFFFF) & 0xFFFFFFFF)       # post-<<1 mask
-    SBIT = np.int32(ones)                                    # score deltas
-    return fw, H, NH, LEAK, SBIT
-
-
-def _bpm_kernel_packed(peq_ref, win_ref, wvalid_ref, out_ref, *, k: int,
-                       m: int, maxerr: int, pack: int,
-                       eqsel: str = "slice"):
-    wi = pl.program_id(1)
-
-    peq_cols = _eq_cols(peq_ref, eqsel)
-    Ctp = peq_ref.shape[0]
-    Wt = win_ref.shape[1]
-
-    fw, H, NH, LEAK, SBIT = _swar_consts(pack)
-    FMASK = jnp.int32((1 << fw) - 1)
-    sh = np.uint32(k - 1)
-
-    VP = jnp.full((Ctp, Wt), np.uint32(0xFFFFFFFF), jnp.uint32)
-    VN = jnp.zeros((Ctp, Wt), jnp.uint32)
-    score = jnp.full((Ctp, Wt), k * int(SBIT), jnp.int32)  # packed fields
-    mins = [jnp.full((Ctp, Wt), k, jnp.int32) for _ in range(pack)]
-
-    assert m % 8 == 0, m  # caller pads; see _bpm_kernel group-loading note
-
-    def step(c_row, carry):
-        VP, VN, score, mins = carry
-        Eq = _eq_select(c_row, peq_cols, eqsel)
-        Xv = Eq | VN
-        a = Eq & VP
-        add = ((a & NH) + (VP & NH)) ^ ((a ^ VP) & H)
-        Xh = (add ^ VP) | Eq
-        Ph = VN | ~(Xh | VP)
-        Mh = VP & Xh
-        up = ((Ph >> sh).astype(jnp.int32)) & SBIT
-        down = ((Mh >> sh).astype(jnp.int32)) & SBIT
-        score = score + up - down
-        mins = [
-            jnp.minimum(mn, (score >> jnp.int32(fw * f)) & FMASK)
-            for f, mn in enumerate(mins)
-        ]
-        Ph = (Ph << np.uint32(1)) & LEAK
-        Mh = (Mh << np.uint32(1)) & LEAK
-        VP = Mh | ~(Xv | Ph)
-        VN = Ph & Xv
-        return (VP, VN, score, mins)
-
-    def group(g, carry):
-        base = pl.multiple_of(g * 8, 8)
-        rows = win_ref[pl.ds(base, 8), :].astype(jnp.int32)  # (8, Wt)
-        for cr in _group_rows(rows, eqsel):
-            carry = step(cr, carry)
-        return carry
-
-    VP, VN, score, mins = jax.lax.fori_loop(
-        0, m // 8, group, (VP, VN, score, mins)
-    )
-    wv = wvalid_ref[:].astype(jnp.int32)  # (1, Wt)
-    partial = jnp.concatenate(
-        [
-            jnp.sum(jnp.maximum(0, (maxerr + 1) - mn) * wv,
-                    axis=1, keepdims=True)
-            for mn in mins
-        ],
-        axis=1,
-    )  # (Ctp, pack)
-
-    @pl.when(wi == 0)
-    def _():
-        out_ref[:] = partial
-
-    @pl.when(wi != 0)
-    def _():
-        out_ref[:] = out_ref[:] + partial
-
-
-# ---------------------------------------------------------------------------
-# Level-NFA kernel (Wu-Manber/Baeza-Yates k-differences): one bitvector per
-# error level d, R_d bit i set iff P[0..i] matches a substring ending at the
-# current text position with <= d edits.  Update per text char c:
-#
-#   R'_0 = ((R_0 << 1) | ones) & Eq[c]
-#   R'_d = ((R_d << 1) & Eq[c]) | R_{d-1} | ((R_{d-1} | R'_{d-1}) << 1) | ones
-#          (match        | insertion | substitution/deletion       | restart)
-#
-# (Navarro 2001 survey form, search mode).  Levels nest (R'_{d-1} subset of
-# R'_d), so sticky high bits directly give "alignment with <= d errors seen",
-# and the per-window contribution is sum_d hit_d == max(0, (maxerr+1) -
-# d_min) with no score/min tracking and no carry-coupled SWAR add -- every
-# op is shift/and/or, so fields pack with no guard bits.
-#
-# Inter-field shift leaks need NO masking at all (unlike the Myers kernel's
-# LEAK mask): every left shift's landing spot -- bit 0 of the next field --
-# is value-forced by the recurrence itself.  Rn_0's bit 0 is (leak | ONES) &
-# Eq = Eq_0 (the true NFA value); Rn_1's bit 0 is forced to 1 by `| ONES`;
-# Rn_d (d >= 2) contains `| R_{d-1}` whose bit 0 is always 1 (every R_d,
-# d >= 1, is seeded/updated with `| ONES`), which also makes the explicit
-# `| ONES` redundant for d >= 2.  Within a field, bits k..fw-1 accumulate
-# garbage but shifts only move bits upward, so the tested bit k-1 depends
-# (by induction from the correct bit 0) on genuine transitions only.
-#
-# Per packed word per step: ~27 VPU ops at maxerr=2 vs ~37 for packed
-# Myers, ~20 at maxerr=1, ~10 at maxerr=0 -- the kernel is VPU-bound (see
-# module docstring), so op count converts ~1:1 to throughput.  Initial
-# state R_d(0) = (2^d - 1) replicated per field (first d pattern chars
-# deletable before any text); h seeds from it so k <= maxerr degenerate
-# cases count the empty-substring alignment exactly like the Myers kernels
-# (whose score init is k).
-# ---------------------------------------------------------------------------
-
-
-def _nfa_kernel_packed(peq_ref, win_ref, wvalid_ref, out_ref, *, k: int,
-                       m: int, maxerr: int, pack: int,
-                       eqsel: str = "slice"):
-    wi = pl.program_id(1)
-
-    peq_cols = _eq_cols(peq_ref, eqsel)
-    Ctp = peq_ref.shape[0]
-    Wt = win_ref.shape[1]
-
-    fw = 32 // pack
-    ones = sum(1 << (fw * i) for i in range(pack))
-    ONES = np.uint32(ones)
-
-    # Initial state R_d(0) bit i = [i < d] (first d pattern chars deletable
-    # before any text), truncated to the field width: for narrow fields
-    # (pack 8/16, fw <= maxerr possible at k <= 4) the untruncated value
-    # would spill into the neighbor field.  Truncation preserves the
-    # k <= maxerr degenerate seeding: bit k-1 survives (k <= fw always).
-    R = tuple(
-        jnp.full(
-            (Ctp, Wt),
-            np.uint32(((((1 << d) - 1) & ((1 << fw) - 1)) * ones)
-                      & 0xFFFFFFFF),
-            jnp.uint32,
-        )
-        for d in range(maxerr + 1)
-    )
-    h = R  # count empty-substring alignments when k <= d (see header note)
-
-    assert m % 8 == 0, m  # caller pads; see _bpm_kernel group-loading note
-
-    def step(c_row, carry):
-        # No inter-field leak masks and no `| ONES` for d >= 2 -- see the
-        # header note for why every leaked bit lands on a value-forced bit 0.
-        R, h = carry
-        Eq = _eq_select(c_row, peq_cols, eqsel)
-        S = [r << np.uint32(1) for r in R]  # shifted once, shared below
-        Rn = [(S[0] | ONES) & Eq]
-        for d in range(1, maxerr + 1):
-            nxt = (
-                (S[d] & Eq)                       # match
-                | R[d - 1]                        # insertion (in text)
-                | S[d - 1]                        # substitution
-                | (Rn[d - 1] << np.uint32(1))     # deletion (in text)
-            )
-            if d == 1:
-                nxt = nxt | ONES  # restart; implied by R[d-1] for d >= 2
-            Rn.append(nxt)
-        return tuple(Rn), tuple(hh | rr for hh, rr in zip(h, Rn))
-
-    def group(g, carry):
-        base = pl.multiple_of(g * 8, 8)
-        rows = win_ref[pl.ds(base, 8), :].astype(jnp.int32)  # (8, Wt)
-        for cr in _group_rows(rows, eqsel):
-            carry = step(cr, carry)
-        return carry
-
-    R, h = jax.lax.fori_loop(0, m // 8, group, (R, h))
-    wv = wvalid_ref[:].astype(jnp.int32)  # (1, Wt)
-    cols = []
-    for f in range(pack):
-        sh = np.uint32(fw * f + k - 1)
-        hits = sum(((hd >> sh) & np.uint32(1)).astype(jnp.int32) for hd in h)
-        cols.append(jnp.sum(hits * wv, axis=1, keepdims=True))
-    partial = jnp.concatenate(cols, axis=1)  # (Ctp, pack)
-
-    @pl.when(wi == 0)
-    def _():
-        out_ref[:] = partial
-
-    @pl.when(wi != 0)
-    def _():
-        out_ref[:] = out_ref[:] + partial
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "ct", "wt", "interpret", "maxerr", "pack", "algo",
-                     "eqsel"),
-)
-def approx_counts_pallas_packed(
-    peq, windows_t, window_valid, k: int,
-    ct: int = 32, wt: int = 512, interpret: bool = False,
-    maxerr: int = MAXERR, pack: int = 2, algo: str = "myers",
-    eqsel: str = "slice",
-):
-    """SWAR-packed kernels; same contract as approx_counts_pallas.
-
-    ``pack`` candidates per uint32 word with k <= 32 // pack: Myers
-    supports pack 2/4, the NFA (no carries, no guard bits) 1..16; the
-    Myers score fields hold the semi-global distance,
-    bounded by k, so any window length is safe.  ``ct`` counts *candidates*
-    (must be a multiple of ``pack``); the kernel runs ct//pack packed words
-    per tile.  Measured optima (native/sweep_tiles.py): ct=32/wt=512 for
-    pack=2 at k=16; pack=4 peaks slightly higher at ct=64 when the
-    candidate cap allows.
-
-    ``algo``: "myers" (score-tracking BPM) or "nfa" (level-NFA, fewer VPU
-    ops for maxerr <= 2 -- see _nfa_kernel_packed header).
-    """
-    assert algo in ("myers", "nfa"), algo
-    # The NFA has no carry-coupled ops, so fields pack with no guard bits
-    # down to fw=2 (pack=16, k <= 2); Myers needs the SWAR guard-bit layout
-    # validated for pack <= 4 only.
-    assert pack in ((1, 2, 4, 8, 16) if algo == "nfa" else (2, 4)), (
-        algo, pack, "pack=1 Myers is approx_counts_pallas")
-    assert k <= 32 // pack, (k, pack)
-    C = peq.shape[0]
-    m, W = windows_t.shape
-    assert C % ct == 0 and W % wt == 0 and ct % pack == 0, (C, ct, W, wt)
-    if m % 8:  # pad text to the kernel's 8-row group size (symbol 5)
-        windows_t = jnp.pad(windows_t, ((0, 8 - m % 8), (0, 0)),
-                            constant_values=np.uint8(5))
-        m = windows_t.shape[0]
-    fw = 32 // pack
-    # interleave-pack: word i = candidates (pack*i .. pack*i + pack-1)
-    peqp = peq[0::pack].astype(jnp.uint32)
-    for f in range(1, pack):
-        peqp = peqp | (peq[f::pack].astype(jnp.uint32) << np.uint32(fw * f))
-    Cp, ctp = C // pack, ct // pack
-    grid = (Cp // ctp, W // wt)
-
-    wvalid = window_valid.astype(jnp.int32).reshape(1, W)
-
-    # Scheduler hint: full-tile VPU ops per packed word per DP step (kernel
-    # header comments), so per-step flops = ops_word * (C // pack) * W.
-    eqops = 4 if eqsel == "slice" else 8
-    if algo == "nfa":
-        ops_word = eqops + (7 if maxerr >= 1 else 0) + 6 * max(0, maxerr - 1)
-    else:
-        ops_word = 23 + eqops + 3 * pack  # incl. per-field min tracking
-    body = _nfa_kernel_packed if algo == "nfa" else _bpm_kernel_packed
-    out = pl.pallas_call(
-        functools.partial(body, k=k, m=m, maxerr=maxerr, pack=pack,
-                          eqsel=eqsel),
-        out_shape=jax.ShapeDtypeStruct((Cp, pack), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((ctp, 4), lambda ci, wi: (ci, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((m, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((ctp, pack), lambda ci, wi: (ci, 0),
-                               memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=ops_word * (C // pack) * W * m,
-            bytes_accessed=C * 16 + m * W + 8 * C,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(peqp, windows_t, wvalid)
-    return out.reshape(C)  # fields interleave back to candidate order
-
-
-# ---------------------------------------------------------------------------
-# Candidate-bit-sliced level-NFA: the fully transposed formulation.  Instead
-# of one word per candidate holding k NFA state bits (shift = VPU op), word
-# bit c holds ONE state bit of candidate c -- 32 candidates per uint32, with
-# one (Ctw, Wt) array per (error level d, pattern position i).  The NFA's
-# "shift by one position" becomes an index rename (free), so the per-step
-# update costs, per 32-candidate word:
-#
-#   Eq[i] = ((P0[i] ^ x0) & (P1[i] ^ x1)) & vm          4 ops x k
-#   Rn_0[i] = R_0[i-1] & Eq[i]   (Rn_0[0] = Eq[0])      k-1 ops
-#   Rn_d[i] = (R_d[i-1] & Eq[i]) | R_{d-1}[i]
-#           | R_{d-1}[i-1] | Rn_{d-1}[i-1]              4(k-d) ops per level
-#   h_d |= Rn_d[k-1]                                    1 op per level
-#
-# where P0[i]/P1[i] are (Ctw, 1) *candidate* bit-planes (bit c = bit 0/1 of
-# candidate c's base at position i -- build_sliced_planes) and x0/x1/vm are
-# the same (1, Wt) text-row masks as the packed kernels' "slice" Eq select
-# (_slice_rows).  Positions i < d are all-ones at every step (i+1 <= d
-# leading pattern chars are deletable), so they are compile-time constants,
-# never carried or updated; levels d > k-1 are entirely constant (hit
-# always) and fold into a per-window additive term.
-#
-# At k=16/maxerr=2 this is ~197 ops per step per 32-candidate word =
-# ~6.2 ops per (pair, step) vs ~11.5 for the packed-pair NFA -- a ~1.8x
-# lower VPU-op floor, at the price of 3k live state arrays (streamed
-# from VMEM by Mosaic; the fori_loop carry is a pytree of ~45 (Ctw, Wt)
-# tiles).  Gains shrink at lower maxerr (the 4k Eq ops are the floor):
-# ~1.4x at maxerr=0, ~1.25x at 1, ~1.5x at 3.
+# Layout on the card: one program takes one 32-candidate word and a tile
+# of ``wt`` windows, and walks the m text rows itself, loading one
+# coalesced row of ``windows_t`` per step.  The whole NFA state is one
+# value per (level, position) per window, held in registers.  Programs
+# write per-window-tile partial counts; XLA sums them (integer sums are
+# exact in any order).
 # ---------------------------------------------------------------------------
 
 
 def build_sliced_planes(peq, k: int):
-    """Candidate bit-planes for the sliced kernel: [C, 4] peq -> (P0, P1),
-    each [C // 32, k] uint32.
+    """Candidate bit-planes: [C, 4] peq -> (P0, P1), each [C // 32, k]
+    uint32.
 
     Bit c of ``P0[w, i]`` is bit 0 of candidate (32w + c)'s base at pattern
     position i (i.e. base in {C, T}); ``P1`` is bit 1 (base in {G, T}).
@@ -715,267 +201,173 @@ def build_sliced_planes(peq, k: int):
     return bitslice(mask0), bitslice(mask1)
 
 
-def _nfa_kernel_sliced(p0_ref, p1_ref, win_ref, wvalid_ref, out_ref, *,
-                       k: int, m: int, maxerr: int, unroll: int = 8,
-                       prologue: bool = False):
-    wi = pl.program_id(1)
+def _nfa_levels(k: int, maxerr: int) -> int:
+    """Error levels with any variable position (the rest are constant)."""
+    return min(maxerr, k - 1) + 1
 
-    Ctw = p0_ref.shape[0]
-    Wt = win_ref.shape[1]
-    P0 = [p0_ref[:, i][:, None] for i in range(k)]  # (Ctw, 1) u32 per pos
-    P1 = [p1_ref[:, i][:, None] for i in range(k)]
 
-    n_levels = min(maxerr, k - 1) + 1   # levels with any variable position
-    n_const = maxerr + 1 - n_levels     # all-constant levels (k <= d)
+@functools.partial(jax.jit, static_argnames=("k",))
+def _nfa_step(c, P0, P1, R, h, k: int):
+    """One text base ``c`` (int32 window row) through the sliced NFA.
+    Jitted so the kernel's unrolled steps share one trace."""
+    x0 = ((c & 1) - 1).astype(jnp.uint32)
+    x1 = (((c >> 1) & 1) - 1).astype(jnp.uint32)
+    vm = ((c - 4) >> 31).astype(jnp.uint32)
+    Eq = [((P0[i] ^ x0) & (P1[i] ^ x1)) & vm for i in range(k)]
+    newR = [tuple([Eq[0]] + [R[0][i - 1] & Eq[i] for i in range(1, k)])]
+    # R[d] holds the variable positions i in [d, k-1] at index i - d
+    for d in range(1, len(R)):
+        prev, below, belown = R[d], R[d - 1], newR[d - 1]
+        cur = []
+        for i in range(d, k):
+            # R_d[d-1] is the all-ones constant region
+            match = Eq[i] if i == d else prev[i - 1 - d] & Eq[i]
+            cur.append(match | below[i - d + 1] | below[i - d]
+                       | belown[i - d])
+        newR.append(tuple(cur))
+    h = tuple(hh | nr[k - 1 - d] for d, (hh, nr) in enumerate(zip(h, newR)))
+    return tuple(newR), h
 
-    zeros = jnp.zeros((Ctw, Wt), jnp.uint32)
-    # R[d] holds only the variable positions i in [d, k-1] (index i - d);
-    # i < d is the all-ones constant region (see header).  Init: R_d(0)
-    # bit i = [i < d] -> variable region starts all-zero.
-    #
-    # ``prologue=True``: the first k-1 text steps are specialized at
-    # compile time.  After consuming rows 0..j, R_d[i] can be nonzero only
-    # for i <= j + d (a level-d alignment ending at row j covers >= i+1-d
-    # text chars), so during step j every position beyond that bound --
-    # and every Eq[i] with i > j + maxerr -- is a known zero whose update
-    # ops need not be emitted.  Known zeros are carried as ``None`` and
-    # elided through the OR-reduction; the steady-state step (j=None)
-    # emits exactly the canonical op sequence.  ~6.6% of the kernel's
-    # total ops fall in this triangle at k=16/maxerr=2/m=104.
 
-    def mk_or(*terms):
-        ts = [t for t in terms if t is not None]
-        if not ts:
-            return None
-        r = ts[0]
-        for t in ts[1:]:
-            r = r | t
-        return r
+def _nfa_kernel(p0_ref, p1_ref, win_ref, valid_ref, out_ref, *, k: int,
+                m: int, n_levels: int, unroll: int):
+    P0 = [p0_ref[0, i] for i in range(k)]
+    P1 = [p1_ref[0, i] for i in range(k)]
+    wt = win_ref.shape[1]
+    zeros = jnp.zeros((wt,), jnp.uint32)
+    carry = (tuple(tuple(zeros for _ in range(d, k))
+                   for d in range(n_levels)),
+             tuple(zeros for _ in range(n_levels)))
 
-    def step(crow, carry, j=None):
-        R, h = carry
-        x0, x1, vm = crow
-        i_eq = k - 1 if j is None else min(k - 1, j + maxerr)
-        Eq = [((P0[i] ^ x0) & (P1[i] ^ x1)) & vm for i in range(i_eq + 1)]
-        Rn0 = [Eq[0]]
-        for i in range(1, k):
-            if j is not None and i > j:
-                Rn0.append(None)  # provably zero this early in the text
-            else:
-                pv = R[0][i - 1]
-                Rn0.append(None if pv is None else (pv & Eq[i]))
-        newR = [tuple(Rn0)]
-        for d in range(1, n_levels):
-            prev, below, belown = R[d], R[d - 1], newR[d - 1]
-            cur = []
-            for i in range(d, k):
-                if j is not None and i > j + d:
-                    cur.append(None)
-                    continue
-                # match: R_d[i-1] & Eq[i]; R_d[d-1] is the constant region
-                if i == d:
-                    match = Eq[i]
-                else:
-                    pv = prev[i - 1 - d]
-                    match = None if pv is None else (pv & Eq[i])
-                # insertion R_{d-1}[i], substitution R_{d-1}[i-1],
-                # deletion Rn_{d-1}[i-1] -- all variable at level d-1
-                cur.append(mk_or(match, below[i - (d - 1)],
-                                 below[i - d], belown[i - d]))
-            newR.append(tuple(cur))
-        newh = []
-        for d, (hh, nr) in enumerate(zip(h, newR)):
-            t = nr[k - 1 - d]
-            if t is None:
-                newh.append(hh)
-            elif hh is None:
-                newh.append(t)
-            else:
-                newh.append(hh | t)
-        return tuple(newR), tuple(newh)
-
-    # caller pads m to the unroll size; larger unrolls amortize the carry
-    # pytree's VMEM spill/reload across fori_loop iterations (the ~45 live
-    # state tiles exceed the vreg file) at the price of pad steps.
-    assert m % unroll == 0 and unroll % 8 == 0, (m, unroll)
-
-    def load_rows(base):
-        rows = win_ref[pl.ds(base, unroll), :].astype(jnp.int32)
-        X0, X1, VM = _slice_rows(rows)  # (unroll, Wt) x3
-        return [(X0[i][None, :], X1[i][None, :], VM[i][None, :])
-                for i in range(unroll)]
+    def row(j):
+        return win_ref[j, :].astype(jnp.int32)
 
     def group(g, carry):
-        base = pl.multiple_of(g * unroll, unroll)
-        for cr in load_rows(base):
-            carry = step(cr, carry)
+        # issue the group's row loads together, ahead of their steps
+        rows = [row(g * unroll + u) for u in range(unroll)]
+        for c in rows:
+            carry = _nfa_step(c, P0, P1, *carry, k)
         return carry
 
-    if prologue:
-        # specialized unrolled groups covering steps 0..k-2 (full steps
-        # emitted automatically once j >= k-1 inside the last group)
-        g0 = min(-(-(k - 1) // unroll), m // unroll)
-        carry = (
-            tuple(tuple(None for _ in range(d, k)) for d in range(n_levels)),
-            tuple(None for _ in range(n_levels)),
-        )
-        for g in range(g0):
-            for i, cr in enumerate(load_rows(g * unroll)):
-                carry = step(cr, carry, j=g * unroll + i)
-        # materialize remaining known-zeros for the loop carry
-        R = tuple(tuple(zeros if x is None else x for x in lev)
-                  for lev in carry[0])
-        h = tuple(zeros if x is None else x for x in carry[1])
-    else:
-        g0 = 0
-        R = tuple(tuple(zeros for _ in range(d, k))
-                  for d in range(n_levels))
-        h = tuple(zeros for _ in range(n_levels))
+    carry = jax.lax.fori_loop(0, m // unroll, group, carry)
+    for j in range(m - m % unroll, m):
+        carry = _nfa_step(row(j), P0, P1, *carry, k)
+    _, h = carry
 
-    R, h = jax.lax.fori_loop(g0, m // unroll, group, (R, h))
-    wv = wvalid_ref[:].astype(jnp.int32)  # (1, Wt)
-    cols = []
-    for c in range(32):
-        hits = zeros.astype(jnp.int32)
-        for hd in h:
-            hits = hits + ((hd >> np.uint32(c)) & np.uint32(1)).astype(
-                jnp.int32)
-        cols.append(jnp.sum(hits * wv, axis=1, keepdims=True))  # (Ctw, 1)
-    partial = jnp.concatenate(cols, axis=1)  # (Ctw, 32)
-    if n_const:
-        # k <= d levels hit on every valid window (empty-substring align)
-        partial = partial + n_const * jnp.sum(wv, axis=1, keepdims=True)
+    valid = (-valid_ref[...]).astype(jnp.uint32)  # all-ones iff valid
+    shifts = jax.lax.broadcasted_iota(jnp.uint32, (1, 32), 1)
+    hits = jnp.zeros((wt, 32), jnp.int32)
+    for hd in h:
+        hits = hits + (((hd & valid)[:, None] >> shifts)
+                       & jnp.uint32(1)).astype(jnp.int32)
+    out_ref[0, :] = jnp.sum(hits, axis=0)
 
-    @pl.when(wi == 0)
-    def _():
-        out_ref[:] = partial
 
-    @pl.when(wi != 0)
-    def _():
-        out_ref[:] = out_ref[:] + partial
+#: Window tile of one kernel program (one window per thread, so each NFA
+#: state value is one register; two per thread spill at k=32), and the
+#: text rows per loop iteration.  Measured on the card: PERF.md "Kernel
+#: choices".
+KERNEL_WT = 128
+KERNEL_UNROLL = 4
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "ctw", "wt", "interpret", "maxerr", "unroll",
-                     "prologue"),
+    static_argnames=("k", "maxerr", "wt", "unroll", "interpret"),
 )
-def approx_counts_pallas_sliced(
-    peq, windows_t, window_valid, k: int,
-    ctw: int = 8, wt: int = 256, interpret: bool = False,
-    maxerr: int = MAXERR, unroll: int = 8, prologue: bool = False,
-):
-    """Candidate-bit-sliced NFA; same contract as approx_counts_pallas.
+def approx_counts_kernel(peq, windows_t, window_valid, k: int,
+                         maxerr: int = MAXERR, wt: int = KERNEL_WT,
+                         unroll: int = KERNEL_UNROLL,
+                         interpret: bool = False):
+    """Sliced level-NFA through Pallas/Triton; same contract as
+    ``approx_counts_jnp``.
 
-    ``ctw`` is the candidate-*word* tile (32 candidates each); C is padded
-    internally to a multiple of 32*ctw with zero peq rows (in the bit-plane
-    encoding a zero row decodes as poly-A, so pad rows compute garbage
-    counts -- the padded tail is sliced off the result, and unlike the
-    packed kernels callers need not pre-pad).  W must divide ``wt``.
+    Any C and W: candidates pad to a multiple of 32 with zero peq rows
+    (which compute counts that are sliced off), windows pad to a multiple
+    of ``wt`` (a power of two) with pad symbols and ``window_valid`` False.
+    ``interpret=True`` runs the kernel through the Pallas interpreter (the
+    CPU tests); nothing else sets it.
     """
     C = peq.shape[0]
     m, W = windows_t.shape
-    assert W % wt == 0, (W, wt)
-    # Mosaic block rule: the (ctw, k) plane block's sublane dim must be
-    # 8-divisible (the lane dim k always equals the full array dim).
-    assert ctw % 8 == 0 or interpret, ctw
-    Cpad = _round_up(C, 32 * ctw)
+    assert wt & (wt - 1) == 0, wt
+    Cpad = _round_up(max(C, 1), 32)
     if Cpad != C:
         peq = jnp.pad(peq, ((0, Cpad - C), (0, 0)))
-    P0, P1 = build_sliced_planes(peq, k)  # [Cw, k]
+    P0, P1 = build_sliced_planes(peq.astype(jnp.uint32), k)  # [Cw, k]
     Cw = Cpad // 32
-    if m % unroll:  # pad text to the kernel's group size (symbol 5)
-        windows_t = jnp.pad(
-            windows_t, ((0, unroll - m % unroll), (0, 0)),
-            constant_values=np.uint8(5),
-        )
-        m = windows_t.shape[0]
-    grid = (Cw // ctw, W // wt)
-    wvalid = window_valid.astype(jnp.int32).reshape(1, W)
-
-    n_levels = min(maxerr, k - 1) + 1
-    ops = (4 * k + (k - 1)
-           + sum(4 * (k - d) for d in range(1, n_levels)) + n_levels)
-    out = pl.pallas_call(
-        functools.partial(_nfa_kernel_sliced, k=k, m=m, maxerr=maxerr,
-                          unroll=unroll, prologue=prologue),
-        out_shape=jax.ShapeDtypeStruct((Cw, 32), jnp.int32),
-        grid=grid,
+    Wp = _round_up(max(W, 1), wt)
+    valid = window_valid.astype(jnp.int32)
+    if Wp != W:
+        windows_t = jnp.pad(windows_t, ((0, 0), (0, Wp - W)),
+                            constant_values=np.uint8(5))
+        valid = jnp.pad(valid, (0, Wp - W))
+    n_wt = Wp // wt
+    n_levels = _nfa_levels(k, maxerr)
+    partial = pl.pallas_call(
+        functools.partial(_nfa_kernel, k=k, m=m, n_levels=n_levels,
+                          unroll=unroll),
+        out_shape=jax.ShapeDtypeStruct((n_wt, Cpad), jnp.int32),
+        grid=(n_wt, Cw),
         in_specs=[
-            pl.BlockSpec((ctw, k), lambda ci, wi: (ci, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ctw, k), lambda ci, wi: (ci, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((m, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, wt), lambda ci, wi: (0, wi),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, k), lambda w, c: (c, 0)),
+            pl.BlockSpec((1, k), lambda w, c: (c, 0)),
+            pl.BlockSpec((m, wt), lambda w, c: (0, w)),
+            pl.BlockSpec((wt,), lambda w, c: (w,)),
         ],
-        out_specs=pl.BlockSpec((ctw, 32), lambda ci, wi: (ci, 0),
-                               memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=ops * Cw * W * m,
-            bytes_accessed=Cw * 8 * k + m * W + 4 * Cpad,
-            transcendentals=0,
-        ),
+        out_specs=pl.BlockSpec((1, 32), lambda w, c: (w, c)),
+        backend="triton",
+        compiler_params=plgpu_triton.CompilerParams(
+            num_warps=max(1, wt // 32), num_stages=1),
         interpret=interpret,
-    )(P0, P1, windows_t, wvalid)
-    # bit c of word w is candidate 32w + c -> row-major reshape restores
-    # candidate order
-    return out.reshape(Cpad)[:C]
+        name="bpm_nfa",
+    )(P0, P1, windows_t, valid)
+    # bit c of word w is candidate 32w + c: row-major order is candidate order
+    counts = jnp.sum(partial, axis=0)[:C]
+    n_const = maxerr + 1 - n_levels
+    if n_const:  # k <= d levels hit on every valid window
+        counts = counts + n_const * jnp.sum(valid)
+    return counts
 
 
-# Tuned (eqsel, ct, wt) per error bound for the PACKED kernels (kept for
-# the sweep scripts and as differential alternates; the production dispatch
-# below uses the sliced kernel): interleaved A/B best-of-2 on v5e, k=16
-# pack=2 (native/sweep_eqsel*.py).  The bit-sliced Eq select wins clearly
-# at maxerr <= 1 (+16%/+11%) and narrowly at 2 (with the smaller candidate
-# tile); at maxerr=3 the nested-where select is faster -- its
-# compare/selects issue on a different VPU pipe than the level updates'
-# logic ops, which dominate at high maxerr.
-_TUNE = {
-    0: ("slice", 128, 256),
-    1: ("slice", 128, 256),
-    2: ("slice", 64, 256),
-    3: ("where", 128, 256),
-}
+def default_impl(backend: str | None = None) -> str:
+    """The implementation a backend runs: the plain scan on the CPU, the
+    kernel on the GPU.  No other backend has one."""
+    backend = backend or jax.default_backend()
+    if backend == "cpu":
+        return "jnp"
+    if backend == "gpu":
+        return "kernel"
+    raise NotImplementedError(
+        f"no approximate-count implementation for backend {backend!r}"
+    )
+
+
+def resolve_impl(impl: str | None = None) -> str:
+    """``impl`` checked against the backend (None: its default).  The
+    kernel runs only on a GPU; nothing falls back to another
+    implementation."""
+    backend = jax.default_backend()
+    if impl is None:
+        return default_impl(backend)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown approximate-count implementation "
+                         f"{impl!r} (one of {', '.join(IMPLS)})")
+    if impl == "kernel" and backend != "gpu":
+        raise ValueError(f"the approximate-count kernel needs a GPU; "
+                         f"the backend is {backend}")
+    return impl
 
 
 def approx_counts(peq, windows_t, window_valid, k: int, maxerr: int = MAXERR,
-                  use_pallas: bool | None = None, ct: int | None = None,
-                  wt: int | None = None, interpret: bool = False):
-    """Dispatch to the fastest kernel for the configuration.
-
-    On TPU: the candidate-bit-sliced level-NFA at every error bound and
-    every k -- measured fastest across the board (native/sweep_sliced.py,
-    interleaved A/B on v5e, k=16: +55% over the packed-pair NFA at
-    maxerr=2, +33/+39/+59% at 0/1/3; tile optimum ctw=8, wt=256).  The
-    packed/unpacked Myers and packed NFA kernels remain as differential
-    alternates and for sweeps.  jnp elsewhere (CPU tests; ct/wt/interpret
-    are ignored on the jnp path).
-
-    ``ct`` counts candidates for compatibility with the packed kernels'
-    signature; the sliced kernel tiles candidate *words*, so ct maps to
-    ctw = ct // 32 (minimum 1; outside interpret mode Mosaic requires the
-    sublane dim to be a multiple of 8, so ctw rounds *down* to one --
-    e.g. ct=384 -> ctw=12 -> 8, ct=1024 -> 32).  C needs no pre-padding
-    (the sliced wrapper pads internally)."""
-    on_tpu = (jax.default_backend() not in ("cpu",)
-              if use_pallas is None else use_pallas)
-    if on_tpu:
-        W = windows_t.shape[1]
-        if wt is None:
-            wt = min(256, W)
-            while W % wt:  # odd widths (sharded shards, tests): shrink
-                wt //= 2
-        if ct is None:
-            ctw = 8
-        else:
-            ctw = max(1, ct // 32)
-            if not interpret and ctw % 8:
-                ctw = max(8, ctw - ctw % 8)
-        return approx_counts_pallas_sliced(
-            peq, windows_t, window_valid, k, maxerr=maxerr,
-            ctw=ctw, wt=wt, interpret=interpret,
-        )
+                  impl: str | None = None):
+    """[C, 4] peq x [m, W] windows -> [C] int32 counts, by ``impl``
+    (one of ``IMPLS``; None picks the backend's default)."""
+    if resolve_impl(impl) == "kernel":
+        return approx_counts_kernel(peq, windows_t, window_valid, k,
+                                    maxerr=maxerr)
     return approx_counts_jnp(peq, windows_t, window_valid, k, maxerr=maxerr)

@@ -30,7 +30,7 @@ class Params:
     config_file: str = ""            # -conf (:703)
     forbid_kmer: str = ""            # -fk  (:704)
     solid_km: int = 0                # -sk  (:705)
-    nb_thread: int = 4               # -nt  (:706) -- compat only; TPU path
+    nb_thread: int = 4               # -nt  (:706) -- compat only; device
     #                                   parallelism comes from the mesh
     k: int = 16                      # -k   (:707), 2 <= k <= 32
     sl: int = 100                    # -sl  (:708)
@@ -54,7 +54,10 @@ class Params:
     #                             at compile time, approx_counter.cpp:25)
     device_pool: str = "auto"   # device-resident window pool for multi-pass
     #                             runs: "auto" (cost model), "on", "off"
-    #                             (pipeline.py build_pool, round 5)
+    #                             (pipeline.py build_pool)
+    bpm_impl: str | None = None  # approximate-count implementation, one
+    #                             of kernels/bpm.py IMPLS ("jnp", "kernel");
+    #                             None = the backend's default
 
     def validate(self) -> None:
         """approx_counter.cpp:781-787."""

@@ -18,8 +18,7 @@ start windows carrying one trailing ``BASE_PAD`` column.  Pad symbols are
 inert in both counting stages (they invalidate any k-mer position touching
 them and cannot lower an edit distance), so this changes no counts -- but it
 means the start and end passes run the *same compiled executables*, halving
-cold-start compile count (remote TPU compiles are minutes-slow on this
-stack).  Rows beyond the real sample count are filled with ``BASE_PAD`` and
+the cold-start compile count.  Rows beyond the real sample count are filled with ``BASE_PAD`` and
 masked out downstream, so device shapes stay static (padded to a multiple
 of ``pad_to``).
 """
@@ -41,7 +40,7 @@ class WindowBatch:
     windows: np.ndarray  # uint8 [n_pad, sl+1]; start rows end in one pad col
     n_valid: int
     chosen: np.ndarray | None = None  # int64 [n_valid] sampled read ids
-    #                                   (device-pool dispatch, round 5);
+    #                                   (device-pool dispatch);
     #                                   None for streaming reservoirs
 
     @property
@@ -57,7 +56,7 @@ def gather_rows(buf: np.ndarray, starts: np.ndarray, ncols: int,
                 out: np.ndarray) -> None:
     """Gather ``len(starts)`` rows of ``ncols`` bases from ``buf`` into
     ``out[:len(starts), :ncols]`` -- native memcpy when built (numpy
-    fancy indexing intermittently throttles ~100x on this host), numpy
+    fancy indexing can be much slower on some virtualized hosts), numpy
     fallback otherwise.  Shared by the per-pass sampler and the device
     window pool (pipeline.build_pool)."""
     if len(starts) == 0:
@@ -93,7 +92,7 @@ def sample_windows(
     pipelined driver samples the NEXT pass early and flushes its warnings
     at the reference's point in the log sequence).
     ``gather=False`` skips the host window gather and returns a batch
-    with ``windows=None`` -- the device-pool path (pipeline round 5)
+    with ``windows=None`` -- the device-pool path (pipeline.build_pool)
     gathers on device from the resident pool using ``chosen``; rng
     consumption, eligibility walk, and warnings are identical.
     """

@@ -11,9 +11,10 @@ import pytest
 from approx_counter_tpu.core.codec import BASE_PAD, encode_kmer
 from approx_counter_tpu.kernels.bpm import (
     MAXERR,
+    approx_counts,
     approx_counts_jnp,
-    approx_counts_pallas,
     build_peq,
+    default_impl,
 )
 from approx_counter_tpu.core.codec import split_code
 from approx_counter_tpu.oracle import (
@@ -117,29 +118,6 @@ class TestBpmJnp:
             assert got[i] == want[c]
 
 
-class TestBpmPallas:
-    @pytest.mark.parametrize("k", [2, 16, 32])
-    def test_interpret_matches_jnp(self, k, rng):
-        ct, wt = 8, 128
-        C, W, m = 8, 128, 40
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 5, (W, m)).astype(np.uint8)
-        for w in range(0, W, 5):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        valid[-3:] = False
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k))
-        got = np.asarray(
-            approx_counts_pallas(
-                peq, wins.T.copy(), valid, k, ct=ct, wt=wt, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-
 class TestMaxErr:
     @pytest.mark.parametrize("maxerr", [0, 1, 3])
     def test_jnp_matches_oracle(self, maxerr, rng):
@@ -160,309 +138,15 @@ class TestMaxErr:
         for i, c in enumerate(codes.tolist()):
             assert got[i] == want[c], (maxerr, i)
 
-    def test_pallas_interpret_maxerr1(self, rng):
-        k = 6
-        pats = _random_patterns(rng, 8, k)
-        wins = rng.integers(0, 4, (128, 25)).astype(np.uint8)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), np.ones(128, bool), k,
-                              maxerr=1)
-        )
-        got = np.asarray(
-            approx_counts_pallas(peq, wins.T.copy(), np.ones(128, bool), k,
-                                 ct=8, wt=128, interpret=True, maxerr=1)
-        )
-        np.testing.assert_array_equal(got, want)
-
-
-class TestBpmPacked:
-    @pytest.mark.parametrize("k", [2, 5, 8, 15, 16])
-    @pytest.mark.parametrize("maxerr", [1, 2])
-    def test_packed_interpret_matches_jnp(self, k, maxerr, rng):
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        C, W, m = 8, 128, 40
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 5, (W, m)).astype(np.uint8)
-        for w in range(0, W, 4):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        valid[-7:] = False
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), valid, k, maxerr=maxerr)
-        )
-        got = np.asarray(
-            approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, ct=8, wt=128,
-                interpret=True, maxerr=maxerr,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-    @pytest.mark.parametrize("k", [2, 5, 8])
-    @pytest.mark.parametrize("maxerr", [1, 2])
-    def test_quad_interpret_matches_jnp(self, k, maxerr, rng):
-        """pack=4 (8-bit SWAR fields, k <= 8) vs the jnp reference."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        C, W, m = 8, 128, 40
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 5, (W, m)).astype(np.uint8)
-        for w in range(0, W, 4):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        valid[-7:] = False
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), valid, k, maxerr=maxerr)
-        )
-        got = np.asarray(
-            approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, ct=8, wt=128,
-                interpret=True, maxerr=maxerr, pack=4,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-    def test_quad_long_windows(self, rng):
-        """pack=4 on windows much longer than 128 bases: the 8-bit score
-        fields hold the semi-global distance, which is bounded by k (free
-        text start: D[i][j] <= i), so window length never overflows them."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        k, C, W, m = 8, 4, 128, 360
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 5, (W, m)).astype(np.uint8)
-        for w in range(0, W, 3):  # plant hits deep into the window
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k))
-        got = np.asarray(
-            approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, ct=4, wt=128,
-                interpret=True, pack=4,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-
-class TestNfaPacked:
-    """Level-NFA kernel (Wu-Manber k-differences) vs the jnp Myers
-    reference -- independent algorithms, so agreement is strong evidence
-    both implement min-edit-distance level counting correctly."""
-
-    @pytest.mark.parametrize("k,pack", [(2, 2), (5, 4), (8, 4), (15, 2),
-                                        (16, 2), (20, 1), (32, 1),
-                                        (2, 16), (3, 8), (4, 8)])
-    @pytest.mark.parametrize("maxerr", [0, 1, 2, 3])
-    def test_nfa_interpret_matches_jnp(self, k, pack, maxerr, rng):
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        C, W, m = max(8, pack), 128, 40
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 6, (W, m)).astype(np.uint8)  # incl. N + pad
-        for w in range(0, W, 4):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        valid[-7:] = False
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), valid, k, maxerr=maxerr)
-        )
-        got = np.asarray(
-            approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, ct=C, wt=128,
-                interpret=True, maxerr=maxerr, pack=pack, algo="nfa",
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-    @pytest.mark.parametrize("algo,pack", [("nfa", 2), ("nfa", 4),
-                                           ("myers", 2)])
-    def test_eqsel_variants_agree(self, algo, pack, rng):
-        """The bit-sliced Eq select (xor trick) must be bit-identical to
-        the nested-where select on every symbol value incl. N (4) and
-        pad (5)."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        k = 8 if pack == 4 else 16
-        C, W, m = 8, 128, 40
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 6, (W, m)).astype(np.uint8)
-        valid = np.ones(W, bool)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        kw = dict(ct=8, wt=128, interpret=True, pack=pack, algo=algo)
-        for maxerr in range(3):
-            a = np.asarray(approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, maxerr=maxerr,
-                eqsel="where", **kw))
-            b = np.asarray(approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, maxerr=maxerr,
-                eqsel="slice", **kw))
-            np.testing.assert_array_equal(a, b)
-
-    @pytest.mark.parametrize("k,pack", [(8, 4), (16, 2), (32, 1)])
-    def test_nfa_saturated_state_no_field_leak(self, k, pack, rng):
-        """Adversarial leak pressure: homopolymer pattern x homopolymer text
-        saturates every R bit (field width == k, top bit always set), so
-        every step shifts a 1 into the neighboring field; alternating-base
-        candidates in adjacent fields would corrupt if leaks weren't
-        value-absorbed (the kernel carries no leak masks by design)."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        C, W, m = 8, 128, 40
-        pats = np.zeros((C, k), np.uint8)
-        pats[::2] = 0                      # poly-A: saturates its field
-        pats[1::2] = rng.integers(1, 4, (C // 2, k))  # neighbors: no A
-        wins = np.zeros((W, m), np.uint8)  # poly-A text
-        valid = np.ones(W, bool)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        for maxerr in range(4):
-            want = np.asarray(
-                approx_counts_jnp(peq, wins.T.copy(), valid, k,
-                                  maxerr=maxerr)
-            )
-            got = np.asarray(
-                approx_counts_pallas_packed(
-                    peq, wins.T.copy(), valid, k, ct=8, wt=128,
-                    interpret=True, maxerr=maxerr, pack=pack, algo="nfa",
-                )
-            )
-            np.testing.assert_array_equal(got, want)
-
-    def test_nfa_maxerr_at_least_k(self, rng):
-        """k <= maxerr degenerate case: every window matches even the empty
-        substring (d_min <= k <= maxerr), seeded by the NFA initial state."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_packed
-
-        k, C, W, m = 2, 4, 128, 24
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 4, (W, m)).astype(np.uint8)
-        valid = np.ones(W, bool)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), valid, k, maxerr=3)
-        )
-        got = np.asarray(
-            approx_counts_pallas_packed(
-                peq, wins.T.copy(), valid, k, ct=4, wt=128,
-                interpret=True, maxerr=3, pack=2, algo="nfa",
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-        # d_min <= k == 2 always (delete the whole pattern), so every window
-        # contributes at least (maxerr+1) - k = 2.
-        assert (np.asarray(want) >= 2 * W).all()
-
-
-class TestNfaSliced:
-    """Candidate-bit-sliced NFA (32 candidates/word, one array per (level,
-    position)) vs the jnp Myers reference -- again independent algorithms
-    AND an independent data layout from the packed NFA."""
-
-    @pytest.mark.parametrize("k", [2, 3, 5, 16, 31, 32])
-    @pytest.mark.parametrize("maxerr", [0, 1, 2, 3])
-    def test_sliced_interpret_matches_jnp(self, k, maxerr, rng):
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_sliced
-
-        C, W, m = 40, 128, 40  # C=40: exercises the internal pad-to-32*ctw
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 6, (W, m)).astype(np.uint8)  # incl. N + pad
-        for w in range(0, W, 4):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        valid[-7:] = False
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(
-            approx_counts_jnp(peq, wins.T.copy(), valid, k, maxerr=maxerr)
-        )
-        got = np.asarray(
-            approx_counts_pallas_sliced(
-                peq, wins.T.copy(), valid, k, ctw=1, wt=128,
-                interpret=True, maxerr=maxerr,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
-    @pytest.mark.parametrize("k", [2, 3, 16, 32])
-    @pytest.mark.parametrize("maxerr", [0, 2, 3])
-    def test_sliced_prologue_matches_jnp(self, k, maxerr, rng):
-        """prologue=True compile-time-specializes the first k-1 text steps
-        (positions beyond the i <= j + d reachability bound elided as
-        known zeros) -- must stay bit-identical to the jnp reference,
-        including texts SHORTER than the prologue (m < k)."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_sliced
-
-        C, W = 40, 128
-        for m in (40, 8):  # m=8 < k-1 for k=16/32: prologue-only text
-            pats = _random_patterns(rng, C, k)
-            wins = rng.integers(0, 6, (W, m)).astype(np.uint8)
-            for w in range(0, W, 4):
-                if m >= k:
-                    pos = rng.integers(0, m - k + 1)
-                    wins[w, pos : pos + k] = pats[w % C]
-            valid = np.ones(W, bool)
-            valid[-7:] = False
-            hi, lo = split_code(_codes(pats))
-            peq = build_peq(hi, lo, k)
-            want = np.asarray(
-                approx_counts_jnp(peq, wins.T.copy(), valid, k,
-                                  maxerr=maxerr)
-            )
-            got = np.asarray(
-                approx_counts_pallas_sliced(
-                    peq, wins.T.copy(), valid, k, ctw=1, wt=128,
-                    interpret=True, maxerr=maxerr, prologue=True,
-                )
-            )
-            np.testing.assert_array_equal(got, want, err_msg=f"m={m}")
-
-    def test_sliced_multi_word_tiles(self, rng):
-        """ctw > 1 (several 32-candidate words per tile) and W > wt (the
-        cross-window-tile output accumulation)."""
-        from approx_counter_tpu.kernels.bpm import approx_counts_pallas_sliced
-
-        k, C, W, m = 16, 128, 256, 33  # m % 8 != 0: text pad path
-        pats = _random_patterns(rng, C, k)
-        wins = rng.integers(0, 5, (W, m)).astype(np.uint8)
-        for w in range(0, W, 3):
-            pos = rng.integers(0, m - k + 1)
-            wins[w, pos : pos + k] = pats[w % C]
-        valid = np.ones(W, bool)
-        hi, lo = split_code(_codes(pats))
-        peq = build_peq(hi, lo, k)
-        want = np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k))
-        got = np.asarray(
-            approx_counts_pallas_sliced(
-                peq, wins.T.copy(), valid, k, ctw=2, wt=128, interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-
 
 class TestApproxCountRank:
-    """The device glue around the kernel: peq build, transpose, kernel
-    dispatch (pallas interpret), CompareCount re-rank with the zero-count
-    +1 key offset -- differential vs a host-side oracle composition."""
+    """The device glue around the counting implementation: peq build,
+    transpose, dispatch, CompareCount re-rank with the zero-count +1 key
+    offset -- differential vs a host-side oracle composition."""
 
-    def test_interpret_pallas_glue_matches_oracle(self, rng):
+    @pytest.mark.parametrize("k,maxerr", [(8, 2), (8, 0), (17, 1),
+                                          (17, 3)])
+    def test_glue_matches_oracle(self, k, maxerr, rng):
         from approx_counter_tpu.count.approx import approx_count_rank
         from approx_counter_tpu.core.codec import join_code, split_code
         from approx_counter_tpu.oracle import (
@@ -470,7 +154,7 @@ class TestApproxCountRank:
             oracle_sort_compare_count,
         )
 
-        k, cap, W, m = 8, 16, 64, 24
+        cap, W, m = 16, 64, 24
         pats = _random_patterns(rng, 10, k)
         codes = _codes(pats)
         wins = rng.integers(0, 4, (W, m)).astype(np.uint8)
@@ -487,7 +171,7 @@ class TestApproxCountRank:
 
         a_hi, a_lo, a_cnt, a_val = map(np.asarray, approx_count_rank(
             wins, np.int32(n_valid), sel_hi, sel_lo, sel_valid, k,
-            ct=cap, wt=W, use_pallas=True, interpret=True,
+            maxerr=maxerr,
         ))
         n = int(a_val.sum())
         assert n == len(codes)  # zero-count candidates stay in the ranking
@@ -495,7 +179,60 @@ class TestApproxCountRank:
                        a_cnt[:n].tolist()))
 
         counter = oracle_error_count(
-            [wins[i] for i in range(n_valid)], [int(c) for c in codes], k
+            [wins[i] for i in range(n_valid)], [int(c) for c in codes], k,
+            maxerr=maxerr,
         )
         want = oracle_sort_compare_count(counter, k)
         assert got == want
+
+
+class TestDispatch:
+    """One backend-keyed choice of implementation, and no silent
+    fallback."""
+
+    @pytest.mark.parametrize("backend,impl", [("cpu", "jnp"),
+                                              ("gpu", "kernel")])
+    def test_backend_default(self, backend, impl):
+        assert default_impl(backend) == impl
+
+    @pytest.mark.parametrize("backend", ["rocm", "metal", "neuron"])
+    def test_other_backends_raise(self, backend):
+        with pytest.raises(NotImplementedError):
+            default_impl(backend)
+
+    def test_cpu_default_is_the_scan(self, rng):
+        k = 8
+        pats = _random_patterns(rng, 4, k)
+        hi, lo = split_code(_codes(pats))
+        peq = build_peq(hi, lo, k)
+        wins = rng.integers(0, 6, (16, 30)).astype(np.uint8)
+        valid = np.ones(16, bool)
+        np.testing.assert_array_equal(
+            np.asarray(approx_counts(peq, wins.T.copy(), valid, k)),
+            np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k)),
+        )
+
+    def test_unknown_impl_raises(self, rng):
+        peq = build_peq(np.zeros(2, np.uint32), np.zeros(2, np.uint32), 4)
+        wins = np.zeros((8, 4), np.uint8)
+        with pytest.raises(ValueError):
+            approx_counts(peq, wins, np.ones(4, bool), 4, impl="pallas")
+
+    def test_kernel_does_not_fall_back_on_cpu(self):
+        """Asked for the kernel, the CPU refuses: it is never silently
+        interpreted or replaced by the scan."""
+        peq = build_peq(np.zeros(2, np.uint32), np.zeros(2, np.uint32), 4)
+        wins = np.zeros((8, 4), np.uint8)
+        with pytest.raises(ValueError, match="needs a GPU"):
+            approx_counts(peq, wins, np.ones(4, bool), 4, impl="kernel")
+
+    def test_cli_refuses_kernel_on_cpu(self, tmp_path, capsys):
+        from approx_counter_tpu.__main__ import main
+
+        fa = tmp_path / "r.fa"
+        fa.write_text(">r\n" + "ACGT" * 30 + "\n")
+        rc = main([str(fa), "-k", "8", "-sl", "20", "-o",
+                   str(tmp_path / "o"), "--bpm-impl", "kernel"])
+        assert rc == 1
+        assert "needs a GPU" in capsys.readouterr().err
+        assert not (tmp_path / "o_0.start").exists()

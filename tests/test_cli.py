@@ -138,3 +138,17 @@ def test_internal_valueerror_not_masked(tmp_path, monkeypatch):
     monkeypatch.setattr("approx_counter_tpu.pipeline.run_pipeline", boom)
     with pytest.raises(ValueError, match="internal bug"):
         m.main([str(fa), "-o", str(tmp_path / "o.txt"), "-v", "0"])
+
+
+@pytest.mark.parametrize("flag,want", [([], None), (["--bpm-impl", "jnp"],
+                                                    "jnp"),
+                                       (["--bpm-impl", "kernel"], "kernel")])
+def test_bpm_impl_flag(flag, want):
+    prm = resolve_params(["in.fa", *flag])
+    assert prm.bpm_impl == want
+
+
+def test_bpm_impl_flag_rejects_unknown():
+    with pytest.raises(SystemExit) as e:
+        resolve_params(["in.fa", "--bpm-impl", "pallas"])
+    assert e.value.code == 1

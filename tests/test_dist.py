@@ -5,6 +5,8 @@ mesh shapes 1/2/4/8 -- the determinism assertion that replaces the
 reference's thread-safety argument.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -15,7 +17,11 @@ from approx_counter_tpu.dist.mesh import (
     data_mesh,
     shard_windows,
 )
-from approx_counter_tpu.kernels.bpm import approx_counts_jnp, build_peq
+from approx_counter_tpu.kernels.bpm import (
+    approx_counts_jnp,
+    approx_counts_kernel,
+    build_peq,
+)
 
 
 @pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
@@ -41,20 +47,21 @@ def test_approx_counts_mesh_invariant(n_dev, rng):
     # then consumes the already-sharded arrays without a relayout
     ws, vs = shard_windows(wins.T.copy(), valid, mesh)
     got = np.asarray(
-        approx_counts_sharded(peq, ws, vs, k, mesh=mesh, use_pallas=False)
+        approx_counts_sharded(peq, ws, vs, k, mesh=mesh, impl="jnp")
     )
     np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n_dev", [2, 4])
-def test_sliced_kernel_under_shard_map(n_dev, rng):
-    """The real multi-chip compute path: the production (sliced Pallas)
-    kernel inside shard_map + psum, interpret-mode on the CPU mesh --
-    validates specs/shapes of the per-shard pallas_call, not just the jnp
-    fallback the other mesh tests use."""
+@pytest.mark.parametrize("k,maxerr", [(16, 2), (5, 3)])
+def test_kernel_under_shard_map(n_dev, k, maxerr, rng):
+    """The multi-card compute path: the GPU kernel (interpreted) inside
+    shard_map + psum on the virtual CPU mesh -- validates the specs and
+    shapes of the per-shard pallas_call, with shards that are not a
+    multiple of the kernel's window tile."""
     if len(jax.devices()) < n_dev:
         pytest.skip("not enough virtual devices")
-    k, C, W, m = 16, 40, 128, 40
+    C, W, m = 40, 96 * n_dev, 40
     pats = [rng.integers(0, 4, k).astype(np.uint8) for _ in range(C)]
     codes = np.array([encode_kmer(p) for p in pats], dtype=np.uint64)
     wins = rng.integers(0, 6, (W, m)).astype(np.uint8)  # incl. N + pad
@@ -66,12 +73,14 @@ def test_sliced_kernel_under_shard_map(n_dev, rng):
     hi, lo = split_code(codes)
     peq = build_peq(hi, lo, k)
 
-    want = np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k))
+    want = np.asarray(approx_counts_jnp(peq, wins.T.copy(), valid, k,
+                                        maxerr=maxerr))
     mesh = data_mesh(jax.devices()[:n_dev])
     got = np.asarray(
         approx_counts_sharded(
-            peq, wins.T.copy(), valid, k, mesh=mesh,
-            use_pallas=True, interpret=True, wt=W // n_dev,
+            peq, wins.T.copy(), valid, k, mesh=mesh, maxerr=maxerr,
+            counts_fn=functools.partial(approx_counts_kernel,
+                                        interpret=True),
         )
     )
     np.testing.assert_array_equal(got, want)
@@ -370,7 +379,7 @@ class TestDryrunDifferentialGate:
         def broken_counts(peq, windows_t, window_valid):
             def shard_fn(peq_rep, wt_shard, wv_shard):
                 counts = approx_counts(peq_rep, wt_shard, wv_shard, k,
-                                       use_pallas=False)
+                                       impl="jnp")
                 # BROKEN: psum twice -- the merged total is re-summed
                 # across devices, multiplying every count by n
                 return jax.lax.psum(jax.lax.psum(counts, axis), axis)
@@ -405,8 +414,7 @@ class TestDryrunDifferentialGate:
         bad = broken_step(w_sh, wv_sh, *scalars)
 
         mesh1 = data_mesh(jax.devices()[:1])
-        step1 = make_full_step(mesh1, k, cap, ct=cap, wt=W,
-                               use_pallas=False)
+        step1 = make_full_step(mesh1, k, cap, impl="jnp")
         good = step1(
             jax.device_put(jnp.asarray(windows),
                            NamedSharding(mesh1, P(axis, None))),

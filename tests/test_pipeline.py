@@ -254,7 +254,7 @@ def test_prefetch_pass_equals_sequential(rng):
     from approx_counter_tpu.pipeline import Engine
 
     prm = Params(input_file="<mem>", output="/tmp/x", k=K, sl=SL, limit=LIMIT)
-    eng = Engine(prm, use_pallas=False)
+    eng = Engine(prm)
     windows = rng.integers(0, 4, (64, SL + 1)).astype(np.uint8)
     from approx_counter_tpu.core.codec import BASE_PAD
 
@@ -292,7 +292,7 @@ def test_multirun_pipelined_rng_order(fasta, tmp_path):
 
     reads = read_fastx(str(path))
     rng = np.random.default_rng(99)
-    eng = Engine(prm, use_pallas=False)
+    eng = Engine(prm)
     for r in range(2):
         for end in (False, True):
             batch = sample_windows(reads, 5, SL, end=end, rng=rng, pad_to=WT)
@@ -345,7 +345,7 @@ def test_start_pass_device_resident_batch(rng):
     from approx_counter_tpu.pipeline import Engine
 
     prm = Params(input_file="<mem>", output="/tmp/x", k=K, sl=SL, limit=LIMIT)
-    eng = Engine(prm, use_pallas=False)
+    eng = Engine(prm)
     windows = rng.integers(0, 4, (64, SL + 1)).astype(np.uint8)
     n_valid = 60
 
@@ -370,7 +370,7 @@ def test_solid_mode_fused_cap_regrowth(rng):
     windows[:, :sl] = rng.integers(0, 4, (n, sl))
     prm = Params(input_file="<mem>", output="/tmp/x", k=k, sl=sl,
                  solid_km=1, limit=100, param_lc=100.0)
-    eng = Engine(prm, use_pallas=False)
+    eng = Engine(prm)
     pend = eng.start_pass(windows, n)
     assert pend.cap == 512
     (ec, ecnt), (ac, acnt), stats = pend.finish()
@@ -406,7 +406,7 @@ def test_dense_fallback_fused_packed_output(rng):
     for i in range(n):
         noisy[i, pos[i]] = 4  # 640 Ns
     assert pack_windows_sparse(noisy, n, ncap=16) is None  # would fall back
-    eng2 = Engine(prm, use_pallas=False)
+    eng2 = Engine(prm)
 
     import approx_counter_tpu.core.codec as codec
 
@@ -421,7 +421,7 @@ def test_dense_fallback_fused_packed_output(rng):
         pl_mod.pack_windows_sparse = orig
     # same batch through the sparse path (default ncap comfortably holds
     # 640 Ns) must agree byte-for-byte with the dense fallback
-    eng3 = Engine(prm, use_pallas=False)
+    eng3 = Engine(prm)
     want2 = eng3.start_pass(noisy, n).finish()
     for a, b in zip(got[:2], want2[:2]):
         np.testing.assert_array_equal(a[0], b[0])

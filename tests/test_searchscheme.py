@@ -1,8 +1,7 @@
 """Pin the counting semantics: independent search-scheme enumeration vs
 the exact-stratum DP vs the Sigma max(0, (maxerr+1) - d_min) closed form.
 
-This is the COMPAT #13 retirement test (VERDICT round 2, missing #1): the
-reference's hot engine marks ``tcount[errors][read_id] = true`` for every
+This is the COMPAT #13 retirement test: the reference's hot engine marks ``tcount[errors][read_id] = true`` for every
 occurrence reported by SeqAn's search-scheme ``find<0,2>``
 (/root/reference/approx_counter.cpp:556-586).  approx_counter_tpu
 re-implements the published optimal search schemes from scratch
@@ -11,7 +10,7 @@ fixtures, that the per-read level sets they report equal
 
     { e in [0, maxerr] : e >= d_min }
 
-(the closed form the Pallas kernels compute) and the exact-stratum DP
+(the closed form the counting kernels compute) and the exact-stratum DP
 (oracle.py).  Any future disagreement between search-scheme enumeration
 and the closed form fails here.
 """
